@@ -1,4 +1,4 @@
-"""Distributed GNN training example — single process or a pod slice.
+"""Distributed GNN training example — single process or several hosts.
 
 Single host (uses all local devices; on this image, force the virtual
 CPU mesh to see multi-device behavior):
@@ -6,10 +6,11 @@ CPU mesh to see multi-device behavior):
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python examples/dist_train.py --platform cpu --epochs 10
 
-Pod slice (every host runs the SAME command; jax.distributed discovers
-peers on Cloud TPU):
+Several GPU hosts (every host runs the SAME command with its own
+process id; jax.distributed needs the coordinator spelled out):
 
-    python examples/dist_train.py --multihost --epochs 50
+    JAX_COORDINATOR_ADDRESS=host0:12345 JAX_NUM_PROCESSES=2 \
+    JAX_PROCESS_ID=0 python examples/dist_train.py --multihost --epochs 50
 
 The mesh is ('row', 'col'): graph-node stripes with halo exchange over
 'row', tensor-parallel feature sharding over 'col' (parallel/train.py).

@@ -7,7 +7,7 @@ per-molecule greedy chain). Runs on CPU (host analytics + a small
 training loop on whatever backend is default).
 
 Usage: python examples/molecule_study.py [--n-graphs 100] [--train]
-Appends the utilization table to benchmarks/ogbg_molecule_study.jsonl.
+Appends the utilization table to tmp/ogbg_molecule_study.jsonl.
 """
 
 import argparse
@@ -24,7 +24,7 @@ def main():
     ap.add_argument("--mean-nodes", type=int, default=25)
     ap.add_argument("--train", action="store_true",
                     help="also train the block-diag classifier briefly")
-    ap.add_argument("--out", default="benchmarks/ogbg_molecule_study.jsonl")
+    ap.add_argument("--out", default="tmp/ogbg_molecule_study.jsonl")
     args = ap.parse_args()
 
     import numpy as np

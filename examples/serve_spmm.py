@@ -1,7 +1,7 @@
 """Serving example: reorder once, quantize once, stream SpMM inference.
 
     python examples/serve_spmm.py [--dataset ogbn-arxiv] [--scale 0.1]
-                                  [--impl bsr_int8_pallas] [--dim 256]
+                                  [--impl bsr_int8] [--dim 256]
 
 Demonstrates the deployment path: offline preprocessing (reorder +
 format conversion + int8 quantization) followed by a hot loop of
@@ -18,7 +18,7 @@ import jax
 import numpy as np
 
 from spmm_denseblock_tpu.analyze.metrics import block_metrics
-from spmm_denseblock_tpu.bench.timing import time_synced
+from spmm_denseblock_tpu.bench.timing import time_call
 from spmm_denseblock_tpu.io.datasets import load_dataset
 from spmm_denseblock_tpu.ops import spmm_plan, spmm_scipy
 from spmm_denseblock_tpu.reorder import reorder_cached
@@ -33,7 +33,7 @@ def main():
         "--impl",
         default="auto",
         help="auto routes real (element-sparse) graphs to hybrid; "
-        "bsr_int8_pallas is the quantized block tier for block-dense "
+        "bsr_int8 is the quantized block tier for block-dense "
         "inputs; csr_ell_int8 / hybrid_int8 are the quantized serving "
         "tiers for gather-bound full graphs (use with --calibrate)",
     )
@@ -77,7 +77,7 @@ def main():
         rel = np.abs(got - want).max() / (np.abs(want).max() + 1e-9)
         print(f"check vs scipy: rel err {rel:.2e}")
 
-    secs = time_synced(plan, x, iters=10)
+    secs = time_call(plan, x, iters=10)["secs"]
     print(
         f"{args.impl}: {secs * 1e3:.2f} ms/call  "
         f"{csr.nnz / secs / 1e9:.2f} Gnnz/s  "

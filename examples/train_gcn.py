@@ -1,8 +1,10 @@
-"""End-to-end example: reorder an OGB-scale graph, build the Pallas BSR
-SpMM, train a GCN for node classification.
+"""End-to-end example: reorder an OGB-scale graph, build the SpMM plan,
+train a GCN for node classification.
 
     python examples/train_gcn.py [--dataset ogbn-arxiv] [--scale 0.1]
-                                 [--impl bsr_pallas] [--epochs 50]
+                                 [--impl auto] [--epochs 50]
+
+On a GPU, --impl bsr_pallas forces the Pallas BSR kernel.
 
 This is the framework's "hello world": the reference repo benchmarks the
 A @ X SpMM in isolation (run_csrmm.cu / run_bsrmm.cu); here the same

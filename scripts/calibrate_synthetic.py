@@ -12,7 +12,7 @@ coefficient depend on.
 Reference parity note: the reference measures real OGB graphs
 (download_ogb.py); this environment has no egress, so the stand-ins
 must carry realistic clustering for the reordering results to mean
-anything (VERDICT round-1 item 10).
+anything.
 """
 import json
 import sys

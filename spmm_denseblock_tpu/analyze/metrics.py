@@ -20,7 +20,7 @@ from spmm_denseblock_tpu.formats.csr import CSR
 
 DEFAULT_BLOCK_SIZES = (2, 4, 8, 16, 32, 64, 128, 256)
 # the reference sweeps {2..64} (reorder_graph.cc:14); 128/256 added because
-# those are the MXU-relevant sizes on TPU.
+# those are the matrix-unit tile sizes the BSR kernels run at.
 
 
 def _block_keys(csr: CSR, b: int) -> np.ndarray:
@@ -62,11 +62,9 @@ def fill_histogram(csr: CSR, block_size: int, n_buckets: int = 10) -> np.ndarray
     return np.bincount(buckets, minlength=n_buckets)
 
 
-# measured v5e gather floor (tpu_v5e_gather_floor.jsonl / ROUND2_NOTES):
-# the ELL tier's cost is per-index-bound and CLIFFS with operand-table
-# size — ~2.6 ns/slot on cache/TLB-friendly tables (proteins' 64 MB) up
-# to ~11.5 ns/slot at 1.25 GB (f32 full products; 8.4 bf16). These
-# bracket an estimate, they are not an interpolation model.
+# ELL gather-rate brackets (fit from before the H100 port, not yet re-measured on the H100):
+# the ELL tier's cost is per-index-bound and cliffs with operand-table
+# size. These bracket an estimate, they are not an interpolation model.
 ELL_NS_PER_SLOT_SMALL_TABLE = 2.6
 ELL_NS_PER_SLOT_BIG_TABLE = 11.5
 
@@ -77,12 +75,11 @@ def ell_metrics(
 ) -> Dict[str, float]:
     """Gather-era counterpart of block_metrics: what the degree-bucketed
     ELL tier (ops/csr_spmm_ell.py) will build for this matrix — padded
-    slot count (the quantity the measured v5e runtime tracks), padding
+    slot count (the quantity the gather runtime tracks), padding
     waste, class/chunk counts, and bracket time estimates at the two
-    FIXED measured per-slot rates (small-table / big-table endpoints —
-    not interpolated). `feat_dim`/`itemsize` only size the returned
-    table_bytes; compare it against the measured cliff
-    (tpu_v5e_gather_floor.jsonl) to pick which endpoint applies."""
+    FIXED per-slot rates (small-table / big-table endpoints — not
+    interpolated; fitted before the H100 port). `feat_dim`/`itemsize` only size the returned
+    table_bytes, which picks the endpoint that applies."""
     from spmm_denseblock_tpu.ops.csr_spmm_ell import CHUNK_SLOTS, _row_widths
 
     deg = csr.degrees().astype(np.int64)

@@ -1,4 +1,4 @@
-from spmm_denseblock_tpu.bench.timing import time_chained, time_chained_square
+from spmm_denseblock_tpu.bench.timing import time_call
 from spmm_denseblock_tpu.bench.harness import (
     bench_synthetic_bsr,
     bench_synthetic_csr,
@@ -16,8 +16,7 @@ from spmm_denseblock_tpu.bench.sweeps import (
 )
 
 __all__ = [
-    "time_chained",
-    "time_chained_square",
+    "time_call",
     "bench_synthetic_bsr",
     "bench_synthetic_csr",
     "bench_graph",

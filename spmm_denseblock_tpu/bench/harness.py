@@ -4,7 +4,7 @@ divide.cu drivers; SURVEY.md §2.5).
 
 Every runner returns a flat dict record with the reference's metrics
 (ms, GFLOP/s with the reference's formulas, block density/utilization)
-plus TPU roofline fields (bytes moved, arithmetic intensity, achieved
+plus roofline fields (bytes moved, arithmetic intensity, achieved
 GB/s). Records are JSON-serializable for the sweep harness.
 """
 
@@ -17,12 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from spmm_denseblock_tpu.analyze.metrics import block_metrics
-from spmm_denseblock_tpu.bench.timing import (
-    time_chained,
-    time_chained_square,
-    time_repeats,
-    time_synced,
-)
+from spmm_denseblock_tpu.bench.timing import time_call
 from spmm_denseblock_tpu.convert.csr2bsr import csr_to_bsr
 from spmm_denseblock_tpu.convert.divide import divide
 from spmm_denseblock_tpu.formats.bsr import BSR, random_bsr
@@ -42,35 +37,21 @@ def _transb_apply(plan, xt):
     """Column-major entry: ops/plan.transb_plan semantics, jitted with
     the plan as an ARGUMENT (Plan is a pytree), NOT a closure capture —
     closing over it would re-embed its device arrays as HLO constants
-    (the ops/plan.py round-1 lesson; observed again as a 3.18 GB
-    constant upload that broke the relay in scripts/r3_transb.py)."""
+    (ops/plan.py)."""
     return plan(xt.T)
 
 
-def _time(plan, x) -> float:
-    x_dev = jax.device_put(x)
-    probe = plan(x_dev)
-    if probe.shape == x_dev.shape:
-        return time_chained_square(plan, x_dev)
-    return time_chained(plan, x_dev)
-
-
-def _time_spread(plan, x, repeats: int = 3) -> dict:
-    """Repeated timing with spread fields (bench/timing.time_repeats):
-    {"secs", "secs_min", "secs_max", "repeats"} — every serving record
-    carries its own variance interval (relay-day variance is ~10%)."""
-    x_dev = jax.device_put(x)
-    probe = plan(x_dev)
-    return time_repeats(plan, x_dev, repeats=repeats,
-                        square=probe.shape == x_dev.shape)
+def _time_spread(plan, x, iters: int = 10) -> dict:
+    """Median host-clock time of plan(x) with its min and max
+    (bench/timing.time_call)."""
+    return time_call(plan, jax.device_put(x), iters=iters)
 
 
 # Per-dtype conformance tolerances: the reference gate is elementwise
 # 1e-4 in f32 (/root/reference/check_result.cu:233-246); bf16 gathers
 # carry ~1e-3 relative error BY DESIGN (opt-in reduced precision) and
 # int8 quantization ~1e-2 — a bf16 record failing the f32 gate is bf16
-# being bf16, not a regression, and artifacts must say which (VERDICT
-# r3: padfill bf16 rows' "gate_1e-4": false read as failures).
+# being bf16, not a regression, and records must say which.
 DTYPE_TOL = {
     "float32": 1e-4,
     "f32": 1e-4,
@@ -86,9 +67,8 @@ def dtype_tolerance(dtype_name: Optional[str]) -> float:
 
 
 def conformance_fields(out, ref, dtype_name: Optional[str]) -> Dict:
-    """max-relative-error vs an oracle plus the PER-DTYPE gate — the
-    fields every chip artifact should carry instead of a bare
-    gate_1e-4 (which misreads expected bf16/int8 noise as failure)."""
+    """max-relative-error vs an oracle plus the PER-DTYPE gate (a bare
+    1e-4 gate would misread expected bf16/int8 noise as failure)."""
     out = np.asarray(out, np.float32)
     ref = np.asarray(ref, np.float32)
     denom = max(float(np.max(np.abs(ref))), 1e-30)
@@ -103,7 +83,7 @@ def conformance_fields(out, ref, dtype_name: Optional[str]) -> Dict:
 
 
 def _spread_fields(t: dict) -> Dict:
-    """ms median + min/max + repeat count from a time_repeats dict."""
+    """ms median + min/max + repeat count from a time_call dict."""
     return {
         "ms": t["secs"] * 1e3,
         "ms_min": t["secs_min"] * 1e3,
@@ -142,8 +122,8 @@ def bench_synthetic_bsr(
 
     transb=1: the dense operand arrives COLUMN-major ((dim, K), the
     reference's transB axis — test_bsrmm.cu sweeps transB in {0,1} with
-    cusparse's op(B)). The TPU layout standardizes on row-major
-    features, so this tier measures the honest cost of that choice: a
+    cusparse's op(B)). The library's layout standardizes on row-major
+    features, so this tier measures the cost of that choice: a
     jitted transpose fused in front of the same plan. The transpose is
     timed INSIDE the call (it is what a column-major caller pays)."""
     import time as _t
@@ -172,8 +152,8 @@ def bench_synthetic_bsr(
 def bench_synthetic_csr(
     p: float, dim: int, impl: str = "csr_xla", n_rows: int = 1 << 15
 ) -> Dict:
-    """test_csrmm analog (reference uses 2^17; default 2^15 keeps the
-    segment-sum path's compile tractable through the remote compiler)."""
+    """test_csrmm analog (the reference uses 2^17; default 2^15 keeps
+    the CPU test runs short)."""
     import time as _t
 
     csr = random_csr(p, n_rows, seed=1234)
@@ -271,17 +251,18 @@ def bench_scaling(
     n_block_rows: int = 1024,
     strategy: str = "allgather",
 ) -> Dict:
-    """Distributed scaling measurement + the ICI model it must be read
-    against (parallel/comms.py docstring for why these are separate).
+    """Distributed scaling measurement + the interconnect model it must
+    be read against (parallel/comms.py docstring for why these are
+    separate).
 
     On a SINGLE-HOST CPU mesh every virtual device shares the same
     cores, so linear nnz/s scaling is physically impossible — the
     honest metric there is RETENTION = rate(n) / rate(1): how much of
     the saturated-core total throughput survives partitioning +
     emulated collectives. Ideal = 1.0. The per-device `efficiency`
-    column is kept for pod-slice runs, where devices are real chips.
-    Each record also carries the analytic ICI prediction for the same
-    shape on v5e (the number the >=80% BASELINE target refers to)."""
+    column is kept for multi-card runs, where devices are real cards.
+    Each record also carries the analytic interconnect prediction for
+    the same shape on an H100 host over NVLink (parallel/comms.py)."""
     from spmm_denseblock_tpu.parallel import make_mesh_1d
     from spmm_denseblock_tpu.parallel.comms import efficiency_model
     from spmm_denseblock_tpu.parallel.spmm import dist_bsr_spmm_plan
@@ -296,8 +277,9 @@ def bench_scaling(
     for nd in n_devices_list:
         mesh = make_mesh_1d(nd)
         plan = dist_bsr_spmm_plan(bsr, mesh=mesh, strategy=strategy)
-        # synced timing: deep async queues deadlock CPU-mesh collectives
-        secs = time_synced(plan, x_dev)
+        # every timed call is synchronised: deep async queues can
+        # deadlock CPU-mesh collectives
+        secs = time_call(plan, x_dev, iters=3, warmup=1)["secs"]
         rate = nnz / secs
         if base is None:
             base = rate / nd if nd else rate
@@ -313,9 +295,9 @@ def bench_scaling(
                 "nnz_per_s": rate,
                 "efficiency": rate / (nd * base) if base else 1.0,
                 "retention": rate / rate1 if rate1 else 1.0,
-                "ici_model_efficiency": model["efficiency"],
-                "ici_model_t_comp_us": model["t_comp_us"],
-                "ici_model_t_comm_us": model["t_comm_us"],
+                "link_model_efficiency": model["efficiency"],
+                "link_model_t_comp_us": model["t_comp_us"],
+                "link_model_t_comm_us": model["t_comm_us"],
             }
         )
     return {
@@ -323,8 +305,8 @@ def bench_scaling(
         "nnzb": bsr.nnzb, "strategy": strategy, "points": points,
         "note": (
             "single-host CPU mesh: devices share cores; read `retention` "
-            "(ideal 1.0), not `efficiency`; `ici_model_*` is the v5e "
-            "prediction for this shape (parallel/comms.py)"
+            "(ideal 1.0), not `efficiency`; `link_model_*` is the H100 "
+            "NVLink prediction for this shape (parallel/comms.py)"
         ),
     }
 
@@ -346,7 +328,7 @@ def bench_train_scaling(
     Same reading discipline as bench_scaling: on a single-host CPU mesh
     devices share cores, so the honest metric is RETENTION = step
     rate(n) / rate(1), ideal 1.0 (linear `efficiency` is physically
-    impossible there and is kept only for real pod-slice runs). Timing
+    impossible there and is kept only for real multi-card runs). Timing
     is fully synced per step (loss readback) — deep async queues
     deadlock CPU-mesh collective rendezvous."""
     import time as _time

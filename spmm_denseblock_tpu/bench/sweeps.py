@@ -20,10 +20,10 @@ from typing import Dict, Iterable, List
 
 from spmm_denseblock_tpu.bench import harness
 
-# reference grids (benchmark.py:4-13,23-33,36-46), rescaled to MXU tiles:
-# the reference sweeps b in {2..64}; small blocks are repacked to >=128
-# supertiles on TPU (convert/pack.py), so the device-level sweep covers
-# the tile sizes the MXU can actually consume.
+# reference grids (benchmark.py:4-13,23-33,36-46), rescaled to large
+# tiles: the reference sweeps b in {2..64}; small blocks are repacked to
+# >=128 supertiles (convert/pack.py), so the device-level sweep covers
+# the tile sizes the matrix units consume.
 BSR_GRID = {
     "p": [2e-4, 2e-3, 2e-2],
     "b": [32, 64, 128],

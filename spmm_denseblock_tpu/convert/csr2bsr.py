@@ -3,7 +3,7 @@
 Replaces the reference's cuSPARSE two-phase protocol
 (cusparseXcsr2bsrNnz then cusparseScsr2bsr,
 /root/reference/run_bsrmm.cu:121-142) and the hand-rolled host converter
-(getBSR, /root/reference/my_run_bsr.cu:34-121). On TPU the conversion is a
+(getBSR, /root/reference/my_run_bsr.cu:34-121). Here the conversion is a
 host-side preprocessing step (like the reference's, it runs once and the
 result is reused across SpMM calls); a jit-able device variant lives in
 ops/device_convert.py.

@@ -73,7 +73,7 @@ def auto_threshold(csr: CSR, block_size: int, dense_speedup: float = 4.0) -> flo
     from eyeballing block_density_dist output).
 
     Model: routing a block through the dense path costs b^2 cell-ops on
-    the MXU but runs ~dense_speedup x faster per element than the
+    the matrix units but runs ~dense_speedup x faster per element than the
     gather-bound CSR path; a block with occupancy >= 1/dense_speedup is
     therefore cheaper dense. The returned threshold is that break-even
     clipped to the occupancy distribution actually present (10-bucket
@@ -100,9 +100,9 @@ def ell_padded_slots(degrees: np.ndarray, bucket: str = "quarter") -> int:
     """Total gather slots the degree-bucketed ELL tier issues for rows
     with these degrees: sum of per-row ELL widths (ops/csr_spmm_ell.py's
     class layout; `bucket` must match the plan that will execute the
-    remainder). The measured remainder cost on v5e tracks this count
-    (per-index-bound gather, ~3.7 ns/slot on proteins-scale operands),
-    not raw nnz or tile-amplified bytes (ROUND2_NOTES capture sweep)."""
+    remainder). On the earlier target the remainder cost tracked this
+    count (per-index-bound gather), not raw nnz or tile-amplified bytes;
+    not yet re-measured on the H100."""
     from spmm_denseblock_tpu.ops.csr_spmm_ell import _row_widths
 
     deg = np.asarray(degrees, dtype=np.int64)
@@ -119,16 +119,14 @@ def score_thresholds(
     dtype_bytes: int = 4,
     margin: float = 0.02,
 ):
-    """Measurement-calibrated threshold selection for divide().
+    """Cost-model threshold selection for divide().
 
-    Cost model (full-proteins capture sweeps, tpu_v5e_fullscale_r2
-    .jsonl): within one graph,
+    Cost model (a fit from before the H100 port, not yet re-measured on the H100): within one
+    graph,
         t(thr) ~ c_blk * dense_nnzb(thr) + c_slot * ell_padded_slots(rem)
     — a dense block pays for itself iff it drains >= slots_per_block
-    padded ELL slots from the remainder. The pre-quarter-bucket sweep
-    fit ~600; after quarter buckets + the pad-at-0 remainder rework the
-    measured sweet spot moved denser (thr=0.02: 91.6 ms vs 0.03: 121.9,
-    0.015: 102.8) and 400 ranks those points correctly. The marginal
+    padded ELL slots from the remainder. The default of 400 ranked the
+    earlier target's full-proteins sweep correctly. The marginal
     costs between adjacent thresholds are strongly nonlinear (high-K
     classes drain first), so this is a RANKING constant, not a
     physical one. Unlike the round-1 byte model it still knows that
@@ -139,8 +137,7 @@ def score_thresholds(
     candidates; each candidate then costs one boolean mask + bincount.
     Returns (best_threshold_or_None, report). None means no candidate
     beat the pure-ELL score by more than `margin` (building a dense tier
-    costs memory and plan time; a sub-noise win — products rcmk scored
-    hybrid 0.7% ahead but measured 4% behind — is not worth it), or
+    costs memory and plan time; a sub-noise win is not worth it), or
     every qualifying dense part exceeded `dense_bytes_budget`.
     """
     b = block_size

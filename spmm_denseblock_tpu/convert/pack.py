@@ -1,11 +1,12 @@
-"""Layout packing helpers: small-b BSR -> MXU-tile BSR, padding utilities.
+"""Layout packing helpers: small-b BSR -> large-tile BSR, padding utilities.
 
-TPU rationale (SURVEY.md §7 "Small blocks on a 128x128 MXU"): blocks of
-b in {2..32} — the reference's sweep range (/root/reference/benchmark.py:
-4-8) — waste the systolic array. We repack 128/b x 128/b grids of small
-blocks into one 128x128 supertile (nonzero if any constituent is), the
-TPU analog of the reference's WF_SIZE dispatch on blockDim
-(/root/reference/rocsparse_bsrmm.h:192-252).
+Rationale (SURVEY.md §7 "Small blocks on a large matrix unit"): blocks
+of b in {2..32} — the reference's sweep range
+(/root/reference/benchmark.py:4-8) — underfill a matrix unit. We repack
+B/b x B/b grids of small blocks into one B x B supertile (nonzero if any
+constituent is), the analog of the reference's WF_SIZE dispatch on
+blockDim (/root/reference/rocsparse_bsrmm.h:192-252). The Pallas kernel
+needs b >= 16 (ops/bsr_spmm_pallas.kernel_layout).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from spmm_denseblock_tpu.formats.bsr import BSR
 
 
 def repack_bsr(bsr: BSR, new_block_size: int) -> BSR:
-    """Re-block a BSR matrix to a different (usually larger, MXU-aligned)
+    """Re-block a BSR matrix to a different (usually larger, tile-aligned)
     block size. Exact: the dense matrix represented is unchanged."""
     b, nb = bsr.b, new_block_size
     if nb == b:

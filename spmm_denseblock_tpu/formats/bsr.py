@@ -1,4 +1,4 @@
-"""BSR (block sparse row) format, TPU-first.
+"""BSR (block sparse row) format.
 
 Design divergence from the GPU reference (the single biggest one, see
 SURVEY.md §7 "Hard parts"): instead of a ragged (bsrRowPtr, bsrColInd,
@@ -9,13 +9,12 @@ bsrVal) walked per block-row by warps (/root/reference/rocsparse_bsrmm.h:
     block_rows : (nnzb,) int32  segment ids
     block_cols : (nnzb,) int32  gather ids into the dense operand
 
-This is what both the XLA path (batched matmul + segment_sum) and the
-Pallas scalar-prefetch kernel consume directly; padding to a fixed nnzb
-keeps shapes static across jit calls. The block size defaults to MXU-tile
-scale (128) — on TPU the win comes from nonzero 128x128 tiles being full
-systolic-array matmuls, the analog of the reference's per-warp b<=32
-dispatch (/root/reference/rocsparse_bsrmm.h:192-252) on a machine whose
-"warp" is a 128x128 MXU.
+This is what the XLA path (batched matmul + segment_sum) consumes
+directly, and what the Pallas kernel's row-pointer layout is built from;
+padding to a fixed nnzb keeps shapes static across jit calls. The block
+size defaults to 128: nonzero 128x128 tiles are full tensor-core
+matmuls, the analog of the reference's per-warp b<=32 dispatch
+(/root/reference/rocsparse_bsrmm.h:192-252).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """CSR format as a JAX pytree dataclass.
 
-TPU-first notes: a CSR matrix is a *static-shape* triple
+Design notes: a CSR matrix is a *static-shape* triple
 (indptr, indices, data). Ragged per-row extents never appear inside jit —
 device kernels consume either the COO view (row_ids/col_ids, used by the
 XLA segment-sum SpMM) or a padded/packed layout built in ``convert/``.

@@ -1,11 +1,11 @@
 """Hybrid format: dense-block BSR part + remainder CSR part.
 
-The TPU execution model for this is two kernels summed into one output —
+The execution model for this is two kernels summed into one output —
 the analog of the reference's divide.cu accumulate pattern
 (z += csrmm2(leftover CSR); z += bsrmm(dense blocks),
-/root/reference/divide.cu:348-373, alpha=beta=1) — except on TPU both
-parts are jitted together so XLA overlaps the memory-bound CSR
-segment-sum with the MXU-bound block GEMMs.
+/root/reference/divide.cu:348-373, alpha=beta=1) — except here both
+parts are jitted together so XLA can overlap the memory-bound CSR
+gather with the compute-bound block GEMMs.
 """
 
 from __future__ import annotations

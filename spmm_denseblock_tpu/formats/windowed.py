@@ -1,4 +1,4 @@
-"""Windowed dense-tile format: the TPU-shaped payoff of reordering.
+"""Windowed dense-tile format: the dense-tile payoff of reordering.
 
 Reordering (RCM/Rabbit/Gorder) concentrates each row's nonzeros into a
 narrow column band. This format exploits that directly: rows are tiled
@@ -7,16 +7,16 @@ and stores the submatrix restricted to (tile, window) as a DENSE
 (R, W) tile per window; everything else falls into a remainder CSR.
 SpMM then becomes
 
-    C[tile] = sum_k tiles[t, k] @ B[window_{t,k}]   (batched MXU
+    C[tile] = sum_k tiles[t, k] @ B[window_{t,k}]   (batched dense
               matmuls, contiguous window loads — no scattered gathers)
   + remainder CSR segment-sum (the long tail)
 
 This is the rectangular-supertile generalization of the reference's
 square-block hybrid (divide.cu:52-127): where divide keeps b x b blocks
 above a density threshold, windowed keeps R x W row-band tiles — a
-shape the 128x128 MXU and HBM streaming actually want. Zero-fill FLOPs
-are the price; the MXU has FLOPs to burn while the CSR gather path is
-latency-bound (measured 12% of HBM peak on v5e).
+shape matrix units and streaming memory reads want. Zero-fill FLOPs are
+the price; the matrix units have FLOPs to burn while the CSR gather path
+is latency-bound.
 """
 
 from __future__ import annotations

@@ -156,8 +156,7 @@ def synthetic_powerlaw(
 # at ~0.67 for avg degree 10, below the published 0.729; disjoint
 # co-author-team cliques (collab's actual structure) reach it —
 # measured 0.733 at cal scale, 0.747 at full scale. The default
-# profile ("legacy") keeps the round-1 generator bit-identical — every
-# artifact in benchmarks/ is legacy unless its record says otherwise.
+# profile ("legacy") keeps the round-1 generator bit-identical.
 DATASET_PROFILES: dict = {
     "ogbl-citation": {"lattice": 0.4, "triadic": 0.15,
                       "_measured_cc": 0.166, "_cal_scale": 0.02},
@@ -222,9 +221,9 @@ def graph_stats(csr: CSR, sample: int = 2000, seed: int = 0) -> dict:
 
 def dataset_provenance(name: str) -> str:
     """'ogb' when the real dataset is importable/downloadable, else
-    'synthetic_fallback' (this environment has zero egress — every
-    benchmark in benchmarks/ is on the deterministic stand-in at the
-    reference's published (n, nnz))."""
+    'synthetic_fallback' (without network access every benchmark runs
+    on the deterministic stand-in at the reference's published
+    (n, nnz))."""
     try:
         import ogb  # noqa: F401
 
@@ -244,7 +243,7 @@ def load_dataset(
     size (scaled by `scale` for quick runs).
 
     profile="legacy" (default): the round-1/2 two-knob generator —
-    bit-identical to every cached fixture and benchmarks/ artifact.
+    bit-identical to every cached fixture.
     profile="calibrated": per-dataset knobs from DATASET_PROFILES so the
     stand-in's measured clustering tracks the published value."""
     if profile not in ("legacy", "calibrated"):

@@ -85,7 +85,7 @@ def load_permutation(path: str) -> np.ndarray:
         return np.fromstring(f.read(), dtype=np.int64, sep=" ").reshape(-1)
 
 
-# -- binary cache (the TPU build's fast path) --------------------------------
+# -- binary cache (the library's fast path) -----------------------------------
 
 
 def save_npz(csr: CSR, path: str) -> None:

@@ -2,10 +2,10 @@
 
 Models are pure functions over plain pytree params; the sparse
 aggregation is INJECTED as an ``spmm`` closure (any plan from
-ops/dispatch.py or parallel/spmm.py), so the same model runs on one chip
-(Pallas BSR kernel) or a pod slice (shard_map halo exchange) without
+ops/dispatch.py or parallel/spmm.py), so the same model runs on one card
+(Pallas BSR kernel) or several (shard_map halo exchange) without
 changing model code. The dense transforms (H @ W) are plain jnp matmuls —
-XLA fuses the bias/activation epilogues onto the MXU.
+XLA fuses the bias/activation epilogues into them.
 
 The reference repo stops at the SpMM benchmark (its point is that A @ X
 with a block-densified A is the GNN hot loop); these models complete the
@@ -51,7 +51,7 @@ def gcn_apply(
 ) -> jax.Array:
     """remat=True wraps each layer in jax.checkpoint: activations are
     recomputed in the backward pass instead of stored — trades FLOPs for
-    HBM on deep stacks / large graphs (the standard TPU memory lever)."""
+    device memory on deep stacks / large graphs."""
 
     def layer(p, h, act):
         h = linear(p, spmm(h))

@@ -36,7 +36,7 @@ def make_train_step(
 ):
     """Returns (step, init_state). step is jitted end-to-end.
 
-    GB-scale note (ROUND1_NOTES §0 / ops/plan.py): when `spmm` is a Plan
+    GB-scale note (ops/plan.py): when `spmm` is a Plan
     pytree, it enters the jitted step as an ARGUMENT, so its device
     arrays are runtime parameters — not HLO constants — and
     products-scale sparse operands train without blowing up the program

@@ -1,9 +1,9 @@
-"""CSR SpMM on TPU via XLA gather + segment-sum.
+"""CSR SpMM via XLA gather + segment-sum.
 
 Design note (vs the reference's GE-SpMM warp kernels,
 /root/reference/gespmm_csrmm.h:96-377): element-sparse SpMM is
 gather-bandwidth-bound on any hardware; the GPU kernels stage (colInd,
-val) chunks in shared memory to coalesce the B-row gathers. The TPU-
+val) chunks in shared memory to coalesce the B-row gathers. The XLA-
 idiomatic formulation is data-parallel over nonzeros with static shapes:
 
     P[e, :] = val[e] * B[col[e], :]        (one gather, one scale)
@@ -11,7 +11,7 @@ idiomatic formulation is data-parallel over nonzeros with static shapes:
 
 XLA lowers the gather/scatter to efficient dynamic-slice loops and fuses
 the scale; since row ids are sorted, segment_sum uses the monotonic path.
-This is the CSR baseline tier; the MXU win lives in bsr_spmm_pallas.
+This is the CSR baseline tier; the dense-block win lives in the BSR tiers.
 """
 
 from __future__ import annotations

@@ -2,10 +2,10 @@
 
 The analog of the reference's per-block cuBLAS GEMM driver
 (/root/reference/block_cublas.cu:118-136, test_block_cublas.cu:273-284,
-which round-robins blocks over 32 CUDA streams). On TPU there are no
+which round-robins blocks over 32 CUDA streams). In JAX there are no
 streams to juggle: the batched dot_general below IS the fused,
 scheduler-friendly form — every (b x b) @ (b x F) GEMM is a batch element
-and XLA pipelines HBM reads against the MXU.
+and XLA hands the batch to one batched GEMM.
 
 Exposed separately from bsr_spmm_xla because it accepts *unsorted* block
 lists and scatter-adds into C (the cuBLAS path's semantics), whereas the

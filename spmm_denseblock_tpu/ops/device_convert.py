@@ -2,7 +2,7 @@
 
 The reference converts CSR->BSR on the GPU with cuSPARSE's two-phase
 protocol (cusparseXcsr2bsrNnz then cusparseScsr2bsr,
-/root/reference/run_bsrmm.cu:121-142). The TPU version is one fused XLA
+/root/reference/run_bsrmm.cu:121-142). Here it is one fused XLA
 program over the COO view — but where cuSPARSE materializes a
 data-dependent nnzb, XLA needs static shapes, so the caller passes a
 capacity `nnzb_max` (n_rows*avg-degree bound, or exact from the host

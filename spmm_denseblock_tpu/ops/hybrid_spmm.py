@@ -1,8 +1,8 @@
 """Hybrid SpMM: dense-block Pallas/XLA GEMM part + remainder CSR part.
 
 One jitted function computes both and sums — XLA schedules the
-memory-bound CSR segment-sum alongside the MXU-bound block GEMMs, the
-TPU version of divide.cu's two accumulating library calls
+memory-bound CSR gather alongside the block GEMMs, the JAX version of
+divide.cu's two accumulating library calls
 (/root/reference/divide.cu:348-373).
 """
 
@@ -14,12 +14,16 @@ import jax.numpy as jnp
 from spmm_denseblock_tpu.formats.hybrid import Hybrid
 from spmm_denseblock_tpu.ops.csr_spmm_ell import csr_spmm_ell_plan
 from spmm_denseblock_tpu.ops.bsr_spmm_xla import bsr_spmm_xla_plan
-from spmm_denseblock_tpu.ops.bsr_spmm_pallas import bsr_spmm_pallas_plan
+from spmm_denseblock_tpu.ops.bsr_spmm_pallas import (
+    auto_uses_kernel,
+    bsr_spmm_pallas_plan,
+    pow2_blocks,
+)
 from spmm_denseblock_tpu.ops.plan import sum_plan
 
 
 def hybrid_spmm_plan(
-    hyb: Hybrid, dense_impl: str = "pallas", dtype=None, grad: bool = True,
+    hyb: Hybrid, dense_impl: str = "auto", dtype=None, grad: bool = True,
     bucket: str = "quarter", reduce: str = "auto", row_sort: str = "keep",
     compact: str = "off", compact_slots: int = None, feat_dim: int = 128,
 ):
@@ -29,7 +33,9 @@ def hybrid_spmm_plan(
     remainder's degree-class scheme (csr_spmm_ell._row_widths);
     `row_sort` its intra-class row order (meancol = gather locality);
     `compact`/`compact_slots` its two-level gather mode (unique
-    sub-table compaction — see csr_spmm_ell.COMPACT_SLOTS model)."""
+    sub-table compaction — see csr_spmm_ell.COMPACT_SLOTS model).
+    dense_impl: "pallas", "xla", or "auto" (the kernel where the BSR
+    router would pick it: bsr_spmm_pallas.auto_uses_kernel)."""
     ell_kw = dict(bucket=bucket, reduce=reduce, row_sort=row_sort,
                   compact=compact, feat_dim=feat_dim)
     if compact_slots is not None:
@@ -37,8 +43,11 @@ def hybrid_spmm_plan(
     if hyb.dense.nnzb == 0:
         return csr_spmm_ell_plan(hyb.remainder, grad=grad, dtype=dtype,
                                  **ell_kw)
+    if dense_impl == "auto":
+        dense_impl = "pallas" if auto_uses_kernel() else "xla"
     if dense_impl == "pallas":
-        bsr_run = bsr_spmm_pallas_plan(hyb.dense, dtype=dtype, grad=grad)
+        bsr_run = bsr_spmm_pallas_plan(pow2_blocks(hyb.dense), dtype=dtype,
+                                       grad=grad)
     else:
         bsr_run = bsr_spmm_xla_plan(hyb.dense, dtype=dtype)
     # dtype also reaches the ELL remainder: on gather-bound graphs
@@ -53,22 +62,22 @@ def hybrid_spmm_plan(
 
 
 def hybrid_spmm_int8_plan(
-    hyb: Hybrid, calibration=None, dense_impl: str = "pallas",
+    hyb: Hybrid, calibration=None,
     bucket: str = "quarter", reduce: str = "auto", row_sort: str = "keep",
     compact: str = "off", compact_slots: int = None, feat_dim: int = 128,
     **_ignored,
 ):
     """Serving composition of the two int8 tiers: dense blocks through
-    the int8 MXU kernel (double bf16 throughput) + the ELL remainder
-    through the int8-table gather (half the bf16 gather bytes AND half
-    the table on the per-index rate cliff). Inference only; both parts
-    quantize the operand with the same per-column scheme, so accuracy
-    matches the single-tier ~1e-2 envelope. impl='hybrid_int8'."""
+    the int8 kernel on a GPU, bsr_int8 elsewhere + the ELL remainder
+    through the int8-table gather (half the bf16 gather bytes). Inference
+    only; both parts quantize the operand with the same per-column
+    scheme, so accuracy matches the single-tier ~1e-2 envelope.
+    impl='hybrid_int8'."""
     from spmm_denseblock_tpu.ops.bsr_spmm_int8 import (
         bsr_spmm_int8_plan,
         reject_grad_request,
     )
-    from spmm_denseblock_tpu.ops.bsr_spmm_pallas_int8 import (
+    from spmm_denseblock_tpu.ops.bsr_spmm_pallas import (
         bsr_spmm_pallas_int8_plan,
     )
     from spmm_denseblock_tpu.ops.csr_spmm_ell import csr_spmm_ell_int8_plan
@@ -81,11 +90,11 @@ def hybrid_spmm_int8_plan(
     if hyb.dense.nnzb == 0:
         return csr_spmm_ell_int8_plan(hyb.remainder, calibration=calibration,
                                       **ell_kw)
-    dense_plan = (
-        bsr_spmm_pallas_int8_plan(hyb.dense, calibration=calibration)
-        if dense_impl == "pallas"
-        else bsr_spmm_int8_plan(hyb.dense, calibration=calibration)
-    )
+    if auto_uses_kernel():
+        dense_plan = bsr_spmm_pallas_int8_plan(pow2_blocks(hyb.dense),
+                                               calibration=calibration)
+    else:
+        dense_plan = bsr_spmm_int8_plan(hyb.dense, calibration=calibration)
     if hyb.remainder.nnz == 0:
         return dense_plan
     rem_plan = csr_spmm_ell_int8_plan(hyb.remainder, calibration=calibration,

@@ -8,10 +8,10 @@ the VJP of SpMM's values, and vice versa).
 
 Two tiers:
 - element tier (any CSR): gather both endpoint rows, rowwise dot on the
-  VPU — one fused XLA program.
-- block tier (BSR structure): per nonzero block, an MXU (b,d)@(d,b)
-  batched matmul producing the full (b,b) score block — for densified
-  graphs this turns edge scoring into systolic work.
+  vector units — one fused XLA program.
+- block tier (BSR structure): per nonzero block, a (b,d)@(d,b) batched
+  matmul producing the full (b,b) score block — for densified graphs
+  this turns edge scoring into matrix-unit work.
 """
 
 from __future__ import annotations

@@ -1,20 +1,19 @@
 """Communication-volume model for the distributed SpMM strategies.
 
-Why this exists: single-host CPU-mesh benchmarks CANNOT demonstrate ICI
-scaling — all N virtual devices share the same cores (total compute is
-fixed) and XLA:CPU emulates collectives through shared memory, so their
-cost model is unrelated to a pod slice's. What a CPU mesh CAN validate
-is correctness, partitioning overhead, and total-throughput retention.
-The multi-chip efficiency claim therefore needs the ICI arithmetic made
-explicit — this module is that arithmetic (the scaling-book recipe:
-compare per-device compute time against per-device collective bytes over
-ICI bandwidth).
+Why this exists: single-host CPU-mesh benchmarks CANNOT demonstrate
+interconnect scaling — all N virtual devices share the same cores (total
+compute is fixed) and XLA:CPU emulates collectives through shared
+memory, so their cost model is unrelated to a multi-card host's. What a
+CPU mesh CAN validate is correctness, partitioning overhead, and
+total-throughput retention. The multi-card efficiency claim therefore
+needs the link arithmetic made explicit — this module is that arithmetic
+(compare per-device compute time against per-device collective bytes
+over link bandwidth).
 
-Hardware constants default to TPU v5e (the chip every measured number in
-benchmarks/ comes from): 197 TFLOP/s bf16 / ~49 f32, 819 GB/s HBM, and
-~45 GB/s usable per-direction ICI bandwidth per 1D ring neighbor link
-(v5e has 4 ICI links per chip on a 2D torus; a 1D stripe mesh uses one
-neighbor pair). All overridable for other parts.
+Hardware constants come from the `device_kind`-keyed table in
+spmm_denseblock_tpu/hardware.py (default: H100 SXM, whose NVLink joins
+every card of the host to every other at 450 GB/s each way). The model
+has not been fitted to a multi-card measurement yet.
 
 Per-call, per-device bytes for C = A @ B, A row-striped over n devices,
 B row-sharded (K x F, dtype s bytes):
@@ -27,30 +26,20 @@ B row-sharded (K x F, dtype s bytes):
   halo      — only 2*halo neighbor chunks ever move:
               2*halo/n * K * F * s       (O(1) in n; needs bandedness)
 
-Per-device compute: 2 * (nnzb/n) * b^2 * F flops on the MXU.
+Per-device compute: 2 * (nnzb/n) * b^2 * F flops.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Dict
 
 import numpy as np
 
-
-@dataclass(frozen=True)
-class ChipModel:
-    """TPU v5e defaults; every field overridable."""
-
-    name: str = "tpu_v5e"
-    peak_flops_f32: float = 49e12   # 6-pass bf16 MXU (HIGHEST)
-    peak_flops_bf16: float = 197e12
-    hbm_gbps: float = 819e9
-    ici_gbps: float = 45e9          # per-direction neighbor link, usable
-    mfu: float = 0.6                # measured flat-kernel fraction of peak
+from spmm_denseblock_tpu.hardware import DEFAULT_KIND, device_spec
 
 
-V5E = ChipModel()
+def _peak(spec, dtype_flops: str) -> float:
+    return spec.flops_bf16 if dtype_flops == "bf16" else spec.flops_f32
 
 
 def comms_bytes_per_device(
@@ -78,7 +67,7 @@ def efficiency_model(
     F: int,
     itemsize: int = 4,
     halo: int = 1,
-    chip: ChipModel = V5E,
+    device_kind: str = DEFAULT_KIND,
     dtype_flops: str = "f32",
     overlap: bool = True,
 ) -> Dict:
@@ -91,12 +80,10 @@ def efficiency_model(
 
     Returns the full term breakdown so artifacts can record the model
     next to the measurement."""
-    peak = (
-        chip.peak_flops_bf16 if dtype_flops == "bf16" else chip.peak_flops_f32
-    )
-    t_comp = (2.0 * nnzb / max(n, 1) * b * b * F) / (peak * chip.mfu)
+    spec = device_spec(device_kind)
+    t_comp = (2.0 * nnzb / max(n, 1) * b * b * F) / _peak(spec, dtype_flops)
     bytes_dev = comms_bytes_per_device(strategy, n, K, F, itemsize, halo)
-    t_comm = bytes_dev / chip.ici_gbps
+    t_comm = bytes_dev / spec.link_bytes_per_s
     if overlap:
         t_total = max(t_comp, t_comm)
     else:
@@ -109,7 +96,7 @@ def efficiency_model(
         "t_comm_us": t_comm * 1e6,
         "bytes_per_device": bytes_dev,
         "efficiency": eff,
-        "chip": chip.name,
+        "device": spec.name,
     }
 
 
@@ -122,18 +109,16 @@ def min_nnzb_for_efficiency(
     target: float = 0.8,
     itemsize: int = 4,
     halo: int = 1,
-    chip: ChipModel = V5E,
+    device_kind: str = DEFAULT_KIND,
     dtype_flops: str = "f32",
 ) -> int:
     """Smallest total nnzb for which the model predicts >= target
     efficiency (with overlap, efficiency hits 1.0 exactly when
     T_comp >= T_comm; the target shapes the non-overlapped reserve)."""
-    peak = (
-        chip.peak_flops_bf16 if dtype_flops == "bf16" else chip.peak_flops_f32
-    )
+    spec = device_spec(device_kind)
     bytes_dev = comms_bytes_per_device(strategy, n, K, F, itemsize, halo)
-    t_comm = bytes_dev / chip.ici_gbps
+    t_comm = bytes_dev / spec.link_bytes_per_s
     # T_comp >= target * t_comm  (overlap model)
-    need_flops_dev = t_comm * target * peak * chip.mfu
+    need_flops_dev = t_comm * target * _peak(spec, dtype_flops)
     nnzb_dev = need_flops_dev / (2.0 * b * b * F)
     return int(np.ceil(nnzb_dev * n)) if nnzb_dev else 0

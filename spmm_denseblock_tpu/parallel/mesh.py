@@ -1,15 +1,16 @@
 """Device mesh helpers.
 
-The reference is single-GPU (SURVEY.md §2.7) — this layer exists only in
-the TPU build. Axis convention:
+The reference is single-GPU (SURVEY.md §2.7) — this layer has no
+counterpart there. Axis convention:
 
   "row"  — partitions the sparse matrix A by block-row ranges (each device
            owns a horizontal stripe of A and the matching stripe of C).
   "col"  — partitions the dense operand's feature dimension (tensor
            parallelism for the model layer weights).
 
-ICI note: `make_mesh` keeps "row" as the major (slowest-varying) axis so
-the ppermute ring in parallel/spmm.py rides neighboring devices.
+The mesh follows the algorithm, not a topology: NVLink joins every card
+of a host to every other at the same rate, so any device order serves
+the ppermute ring in parallel/spmm.py.
 """
 
 from __future__ import annotations

@@ -91,13 +91,11 @@ def balanced_contiguous_boundaries(bsr: BSR, n_shards: int) -> np.ndarray:
 def block_index_payload(nnzb: int) -> np.ndarray:
     """(nnzb, 1, 1) int64 stand-in for a block-value array: entry i
     holds i+1 (0 = zero block). Every layout stage (shard_bsr /
-    bucket_by_col_chunk / bucket_halo / pack_buckets_pallas) only
-    permutes blocks, pads with np.zeros, and detects padding via
-    abs().sum() != 0 — all of which hold for this payload — so the
-    whole shard->bucket->pack pipeline can run on 8-byte tokens instead
-    of b*b*4-byte blocks, and the real values are materialized ONCE at
-    the end (materialize_packed). At the headline dist shape this cuts
-    plan time from 47-89 s to seconds (round-4 verdict #4)."""
+    bucket_by_col_chunk / bucket_halo) only permutes blocks, pads with
+    np.zeros, and detects padding via abs().sum() != 0 — all of which
+    hold for this payload — so the whole shard->bucket pipeline can run
+    on 8-byte tokens instead of b*b*4-byte blocks, and the real values
+    are materialized ONCE at the end (materialize_packed)."""
     return (np.arange(nnzb, dtype=np.int64) + 1).reshape(-1, 1, 1)
 
 
@@ -154,29 +152,15 @@ def shard_bsr(
         base = boundaries
     real_counts = np.bincount(owner, minlength=n_shards)
 
-    # per-shard covering: every LOCAL block-row gets >= 1 block (zero
-    # blocks for absent rows) so a Pallas local kernel writes every
-    # output tile; stripes stay sorted by local row for the kernel's
-    # zero-init-on-row-change logic.
+    # stripes sorted by local row (segment_sum's indices_are_sorted
+    # contract).
     shard_lists = []
     for s in range(n_shards):
         sel = owner == s
         s_base = s * rows_per if base is None else int(base[s])
-        s_height = rows_per if base is None else int(base[s + 1] - base[s])
         slr = (rows[sel] - s_base).astype(np.int64)
         sbc = cols[sel].astype(np.int64)
         sbv = blocks[sel]
-        # covering applies to the stripe's REAL height only; padded rows
-        # above it never receive output reads
-        present = np.zeros(max(s_height, 1), dtype=bool)
-        present[slr] = True
-        missing = np.nonzero(~present)[0]
-        if missing.size:
-            slr = np.concatenate([slr, missing])
-            sbc = np.concatenate([sbc, np.zeros(missing.size, np.int64)])
-            sbv = np.concatenate(
-                [sbv, np.zeros((missing.size, pb, pb), sbv.dtype)]
-            )
         order = np.argsort(slr, kind="stable")
         shard_lists.append((slr[order], sbc[order], sbv[order]))
 
@@ -237,184 +221,6 @@ def bucket_by_col_chunk(sh: ShardedBSR) -> Tuple[np.ndarray, np.ndarray, np.ndar
                 cc[s, c, :k] = (sh.block_cols[s, sel] - c * cpc)[order]
                 bv[s, c, :k] = sh.blocks[s, sel][order]
     return lr, cc, bv
-
-
-def pack_buckets_pallas(lr, cc, bv, n_block_rows, group="auto", deep=False,
-                        rowgroup=0, sorted_geom=None):
-    """Convert bucketed block lists into the flat-Pallas grouped layout.
-
-    lr/cc/bv: (..., mb) / (..., mb) / (..., mb, b, b) bucketed block
-    lists (the bucketers above; padding entries are zero blocks). Per
-    bucket: zero blocks are stripped, every local block-row in
-    [0, n_block_rows) is re-covered with one zero block (the flat
-    kernel zero-initializes an output tile when the grid first reaches
-    its row, so every tile must be reached — ops/bsr_spmm_pallas.py),
-    rows are re-sorted, and blocks are group-packed (_pack_groups,
-    including its pad-DMA-skip col fill). Buckets are then padded to
-    one uniform step count T (shard_map traces a single program, so
-    grid shapes must agree across devices) with steps that repeat the
-    previous row and per-buffer cols: no tile re-zero, zero MXU
-    contribution, and Mosaic skips the repeated B-tile DMA.
-
-    Returns (step_rows (..., T), slot_cols (..., T*G),
-    blocks (..., T*G, b, b), G).
-
-    deep=True selects the pow2 group rule (up to G=32) for the paths
-    measured monotone-better at deep groups — the resident bf16 local
-    kernel and the gather int8 kernel (resident_probe_r4.jsonl); the
-    default keeps the gather rule (G=8 cap).
-
-    rowgroup=R (R > 0) packs each bucket in the ROW-GROUP resident
-    layout instead (ops/bsr_spmm_pallas._pack_rowgroups: R covered
-    block-rows share each grid step, slots split into R static lanes of
-    `group` each) — the measured-best schedule for resident bf16 AND
-    int8 local kernels (resident_probe_r4.jsonl R sweep + corrected
-    int8 rows). step_rows then holds GROUP ids; every bucket covers the
-    same n_block_rows so n_groups = ceil(n_block_rows / R) uniformly,
-    and the cross-bucket step padding repeats the last step's group id
-    (no output re-zero) exactly like the single-row form repeats its
-    last row.
-
-    sorted_geom=(R, gh, W) packs the DEPTH-SORTED row-group layout
-    (ops/bsr_spmm_pallas._pack_rowgroups_sorted — the round-5 schedule
-    that collapsed pad slots 64.7% -> 15-30% and bought +16.8% bf16 on
-    chip, depthsort_ab_r5.jsonl). The per-lane window positions ride
-    CONCATENATED into the step array — step_rows becomes
-    [win_ids (T,) | pos (T*R,)] per bucket, so every shard_map arity
-    and in_spec stays unchanged; route_pallas_spmm splits it back.
-    Cross-bucket padding repeats the last window id (no re-zero) and
-    the last step's positions (their slots are zero blocks).
-    """
-    from spmm_denseblock_tpu.ops.bsr_spmm_pallas import (
-        _auto_group,
-        _auto_group_pow2,
-        _pack_groups,
-        _pack_rowgroups,
-    )
-
-    lr, cc, bv = np.asarray(lr), np.asarray(cc), np.asarray(bv)
-    lead = lr.shape[:-1]
-    b = bv.shape[-1]
-    lrf = lr.reshape(-1, lr.shape[-1])
-    ccf = cc.reshape(-1, cc.shape[-1])
-    bvf = bv.reshape(-1, bv.shape[-3], b, b)
-    n_lists = lrf.shape[0]
-
-    covered = []
-    total_real = 0
-    total_rows = 0
-    for i in range(n_lists):
-        nz = np.abs(bvf[i]).sum(axis=(-1, -2)) != 0
-        rows_i = lrf[i, nz].astype(np.int64)
-        cols_i = ccf[i, nz].astype(np.int64)
-        blks_i = bvf[i, nz]
-        total_real += int(rows_i.size)
-        total_rows += int(np.unique(rows_i).size)
-        present = np.zeros(n_block_rows, dtype=bool)
-        present[rows_i] = True
-        missing = np.nonzero(~present)[0]
-        if missing.size:
-            rows_i = np.concatenate([rows_i, missing])
-            cols_i = np.concatenate([cols_i, np.zeros(missing.size, np.int64)])
-            blks_i = np.concatenate(
-                [blks_i, np.zeros((missing.size, b, b), bvf.dtype)]
-            )
-        order = np.argsort(rows_i, kind="stable")
-        covered.append((rows_i[order], cols_i[order], blks_i[order]))
-
-    if group == "auto":
-        rule = _auto_group_pow2 if deep else _auto_group
-        group = rule(total_real, max(total_rows, 1))
-        if rowgroup:
-            # (R, gh) grid optimum (session 8): G_tot = R*gh = 128 with
-            # the smaller per-row group — cap shared with the
-            # single-chip policy so a retune there cannot drift
-            from spmm_denseblock_tpu.ops.bsr_spmm_pallas import (
-                _ROWGROUP_GH_CAP,
-            )
-
-            group = min(group, _ROWGROUP_GH_CAP)
-    if sorted_geom is not None:
-        from spmm_denseblock_tpu.ops.bsr_spmm_pallas import (
-            _pack_rowgroups_sorted,
-            per_buffer_col_fill,
-        )
-
-        R, gh, W = sorted_geom
-        group = gh
-        slots = R * gh
-        packed_s = [
-            _pack_rowgroups_sorted(r, c, v, gh, R, W)
-            for r, c, v in covered
-        ]
-        t_max = max(p[0].shape[0] for p in packed_s)
-        sr = np.zeros((n_lists, t_max * (1 + R)), np.int32)
-        sc = np.zeros((n_lists, t_max * slots), np.int32)
-        bp = np.zeros((n_lists, t_max * slots, b, b), bvf.dtype)
-        for i, (win, pos, c, v, _n_win) in enumerate(packed_s):
-            t = win.shape[0]
-            sr[i, :t] = win
-            sr[i, t_max : t_max + t * R] = pos
-            sc[i, : t * slots] = c
-            bp[i, : t * slots] = v
-            if t < t_max:
-                sr[i, t:t_max] = win[-1]
-                sr[i, t_max + t * R :] = np.tile(pos[-R:], t_max - t)
-                sc[i, t * slots :] = np.tile(c[-slots:], t_max - t)
-            c2 = sc[i].reshape(t_max, slots)
-            real = (
-                np.abs(bp[i]).sum(axis=(-1, -2)) != 0
-            ).reshape(t_max, slots)
-            sc[i] = per_buffer_col_fill(c2, real).reshape(-1)
-        return (
-            sr.reshape(lead + (t_max * (1 + R),)),
-            sc.reshape(lead + (t_max * slots,)),
-            bp.reshape(lead + (t_max * slots, b, b)),
-            group,
-        )
-    group = int(group)
-    if rowgroup:
-        packed = [
-            _pack_rowgroups(r, c, v, group, rowgroup)[:3]
-            for r, c, v in covered
-        ]
-    else:
-        packed = [_pack_groups(r, c, v, group) for r, c, v in covered]
-    slots = group * (rowgroup if rowgroup else 1)  # slots per grid step
-    t_max = max(p[0].shape[0] for p in packed)
-    sr = np.zeros((n_lists, t_max), np.int32)
-    sc = np.zeros((n_lists, t_max * slots), np.int32)
-    bp = np.zeros((n_lists, t_max * slots, b, b), bvf.dtype)
-    for i, (r, c, v) in enumerate(packed):
-        t = r.shape[0]
-        sr[i, :t] = r
-        sc[i, : t * slots] = c
-        bp[i, : t * slots] = v
-        if t < t_max:
-            sr[i, t:] = r[-1]
-            sc[i, t * slots :] = np.tile(c[-slots:], t_max - t)
-        # zero-slot DMA skip, extended to COVERING blocks (not just
-        # _pack_groups' group pads): any all-zero slot contributes
-        # nothing regardless of its col, so point it at the same
-        # buffer's most recent REAL col — Mosaic only issues the
-        # B-tile DMA on index change. Ring/halo buckets are mostly
-        # covering steps on sparse stripes, so this skips most of
-        # their gather traffic. Leading zero slots (no earlier real
-        # col in the buffer) keep their col. Shared fill helper with
-        # _pack_groups (ops/bsr_spmm_pallas.per_buffer_col_fill).
-        from spmm_denseblock_tpu.ops.bsr_spmm_pallas import (
-            per_buffer_col_fill,
-        )
-
-        c2 = sc[i].reshape(t_max, slots)
-        real = (np.abs(bp[i]).sum(axis=(-1, -2)) != 0).reshape(t_max, slots)
-        sc[i] = per_buffer_col_fill(c2, real).reshape(-1)
-    return (
-        sr.reshape(lead + (t_max,)),
-        sc.reshape(lead + (t_max * slots,)),
-        bp.reshape(lead + (t_max * slots, b, b)),
-        group,
-    )
 
 
 def shard_stats(sh: ShardedBSR) -> dict:

@@ -76,7 +76,7 @@ def main(argv=None):
             f"padded_ratio={em['padded_ratio']:.3f} "
             f"classes={em['n_classes']} chunks={em['n_chunks']} "
             f"est={em['est_ms_small_table_rate']:.1f}-"
-            f"{em['est_ms_big_table_rate']:.1f} ms @F=128 (v5e rates)"
+            f"{em['est_ms_big_table_rate']:.1f} ms @F=128 (rates fitted before the H100 port)"
         )
         if args.ell_compact:
             print(

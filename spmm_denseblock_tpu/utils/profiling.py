@@ -2,11 +2,11 @@
 with CUDA events, cudaProfilerStart/Stop markers and Nsight Compute
 recipes (SURVEY.md §5.1; /root/reference/clang_omp.sh:40-43).
 
-TPU equivalents:
+JAX equivalents:
 - `trace(logdir)`: jax.profiler context — open the dump with
-  TensorBoard/XProf for the MXU/HBM counters Nsight sections gave.
+  TensorBoard/XProf for the device kernel timeline Nsight gave.
 - `annotate(name)`: TraceAnnotation, the cudaProfiler marker analog.
-- `device_info()`: chip kind / HBM / core counts for bench records.
+- `device_info()`: device kind / memory / counts for bench records.
 - `roofline(flops, bytes, secs)`: achieved intensity + rates; feed it
   per-chip peaks to get fraction-of-peak.
 """

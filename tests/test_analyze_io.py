@@ -276,8 +276,8 @@ def test_ell_compact_metrics_model():
 def test_lattice_knob_and_calibrated_profiles():
     """The ring-lattice knob raises clustering monotonically and the
     calibrated per-dataset profiles land closer to the OGB-published
-    clustering coefficient than the legacy generator does (VERDICT
-    round-1 item 10; knobs fitted by scripts/calibrate_synthetic.py)."""
+    clustering coefficient than the legacy generator does (knobs
+    fitted by scripts/calibrate_synthetic.py)."""
     import numpy as np
     from spmm_denseblock_tpu.io.datasets import (
         DATASET_PROFILES,
@@ -348,7 +348,7 @@ def test_load_ogb_mocked_structure():
     sys.modules: the symmetrize + de-self-loop + CSR build path is
     tested code, not dead code, and load_dataset prefers the real
     loader over the synthetic fallback when ogb import succeeds
-    (VERDICT r2 #8; mirrors download_ogb.py:12-27's edge dump)."""
+    (mirrors download_ogb.py:12-27's edge dump)."""
     import sys
     import types
 

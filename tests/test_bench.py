@@ -105,25 +105,6 @@ def test_bench_train_step_record():
     json.dumps(rec)
 
 
-def test_timing_mix_produces_distinct_chain_inputs():
-    """Regression for the time_chained underflow bug (ROUND2_NOTES):
-    _mix used 1e-30 * sum(y), which underflowed to +0.0 — every chain
-    input was bit-identical to x0 and the relay deduped the identical
-    calls (marginal-cost timing read ~0). The fixed eps must actually
-    perturb inputs that contain small-magnitude elements (every real
-    operand does)."""
-    import jax.numpy as jnp
-
-    from spmm_denseblock_tpu.bench.timing import _mix
-
-    x = jnp.asarray(
-        np.linspace(-2, 2, 4096, dtype=np.float32).reshape(32, 128)
-    )
-    y = jnp.ones((32, 128), jnp.float32)  # sum(y)=4096 -> eps*sum ~ 4e-9
-    out = np.asarray(_mix(x, y))
-    assert not np.array_equal(out, np.asarray(x))
-
-
 def test_bench_synthetic_bsr_transb():
     """transb=1 (the reference's transposed-operand axis,
     test_bsrmm.cu): a column-major operand goes through an entry

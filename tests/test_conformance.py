@@ -13,7 +13,7 @@ from spmm_denseblock_tpu.formats.csr import CSR, random_csr
 from spmm_denseblock_tpu.ops import PLANNERS, spmm_plan, spmm_scipy
 from spmm_denseblock_tpu.ops.reference import assert_allclose
 
-IMPLS = ["csr_xla", "csr_pallas", "csr_ell", "bcoo", "bsr_xla", "bsr_pallas", "hybrid", "windowed", "dense"]
+IMPLS = ["csr_xla", "csr_ell", "bcoo", "bsr_xla", "bsr_pallas", "hybrid", "windowed", "dense"]
 
 
 def _cases():

@@ -147,7 +147,7 @@ def test_auto_threshold_and_repack_dispatch(rng):
     sparse = random_csr(0.001, 256, seed=3, values="ones")
     assert auto_threshold(sparse, 128) == 1.0
 
-    # repack_to: small-b BSR through the MXU-tile path, oracle-checked
+    # repack_to: small-b BSR through the big-tile path, oracle-checked
     small = random_bsr(0.15, 16, 16, block_size=8, seed=5)
     x = rng.standard_normal((small.shape[1], 16)).astype(np.float32)
     plan = spmm_plan(small, impl="bsr_xla", repack_to=32)
@@ -158,7 +158,7 @@ def test_auto_threshold_and_repack_dispatch(rng):
 def test_device_convert_huge_block_grid_no_overflow():
     """Regression: a fused int32 brow*nbc+bcol key wraps once the block
     grid exceeds 2^31 cells and silently merges distinct blocks; the
-    two-pass sort must count and place them exactly (ADVICE.md r1 #2)."""
+    two-pass sort must count and place them exactly."""
     import jax.numpy as jnp
     import numpy as np
     from spmm_denseblock_tpu.ops.device_convert import (

@@ -165,7 +165,7 @@ def test_checkpoint_roundtrip_resumes_training(tmp_path, rng):
 
 def test_checkpoint_extensionless_path(tmp_path):
     """save('ckpt')/load('ckpt') must agree even though np.savez appends
-    '.npz' and np.load does not (ADVICE.md r1 #3)."""
+    '.npz' and np.load does not."""
     from spmm_denseblock_tpu.models import save_checkpoint, load_checkpoint
 
     params = {"w": np.arange(6, dtype=np.float32).reshape(2, 3)}

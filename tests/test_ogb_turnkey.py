@@ -1,4 +1,4 @@
-"""Real-OGB turnkey contract (VERDICT r3 #9).
+"""Real-OGB turnkey contract.
 
 Everything ever benchmarked in this repo says source=synthetic_fallback
 — the environment has no egress and no ogb package. This module is the

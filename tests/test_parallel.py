@@ -161,119 +161,6 @@ def test_balanced_block_row_permutation(rng):
     assert balanced < 1.3, (naive, balanced)
 
 
-def test_dist_bsr_spmm_pallas_local(mesh, rng):
-    """allgather strategy with the flat Pallas kernel per stripe
-    (interpret mode on the CPU mesh)."""
-    bsr, dense, want = _random_case(rng, b=8, nbr=16, nbc=16, f=16)
-    run = dist_bsr_spmm_plan(
-        bsr, mesh=mesh, strategy="allgather", local_impl="pallas"
-    )
-    assert_allclose(np.asarray(run(dense)), want)
-
-    # ragged shapes + empty block-rows inside stripes
-    bsr2 = random_bsr(0.08, 13, 11, block_size=8, seed=3)
-    dense2 = rng.standard_normal((bsr2.shape[1], 10)).astype(np.float32)
-    run2 = dist_bsr_spmm_plan(
-        bsr2, mesh=mesh, strategy="allgather", local_impl="pallas"
-    )
-    assert_allclose(np.asarray(run2(dense2)), bsr2.to_dense() @ dense2)
-
-
-def test_pack_buckets_pallas_layout(rng):
-    """Layout invariants of the dist-Pallas bucket packer: every local
-    block-row covered (kernel zero-init reaches every output tile),
-    uniform step count across buckets, row-sorted steps, pad slots
-    repeating the same buffer's previous col (DMA skip), and exact
-    value reconstruction."""
-    from spmm_denseblock_tpu.parallel.shard import pack_buckets_pallas
-
-    rows_per, b, G = 7, 4, 2
-    # two buckets: one dense-ish, one EMPTY (all padding) — the empty
-    # chunk case a ring schedule hits on sparse stripes
-    lr = np.array([[0, 0, 2, 5, 6, 6], [6, 6, 6, 6, 6, 6]], np.int32)
-    cc = np.array([[3, 1, 0, 2, 1, 0], [0, 0, 0, 0, 0, 0]], np.int32)
-    bv = rng.standard_normal((2, 6, b, b)).astype(np.float32)
-    bv[1] = 0.0  # bucket 1 holds only zero padding entries
-    sr, sc, bp, g = pack_buckets_pallas(lr, cc, bv, rows_per, group=G)
-    assert g == G
-    t = sr.shape[1]
-    assert sc.shape == (2, t * G) and bp.shape == (2, t * G, b, b)
-    for i in range(2):
-        # covered: every block-row appears among the steps
-        assert set(range(rows_per)) <= set(sr[i].tolist())
-        # row-sorted steps
-        assert (np.diff(sr[i]) >= 0).all()
-        # reconstruction: sum of slot blocks at (row, col) == input sum
-        want = np.zeros((rows_per * b, rows_per * b), np.float32)
-        for j in range(lr.shape[1]):
-            r0, c0 = lr[i, j] * b, cc[i, j] * b
-            want[r0 : r0 + b, c0 : c0 + b] += bv[i, j]
-        got = np.zeros_like(want)
-        rows_slot = np.repeat(sr[i], G)
-        for s in range(t * G):
-            r0, c0 = rows_slot[s] * b, sc[i, s] * b
-            got[r0 : r0 + b, c0 : c0 + b] += bp[i, s]
-        np.testing.assert_allclose(got, want, atol=1e-6)
-        # pad slots (zero blocks) repeat the SAME buffer's previous-step
-        # col whenever one exists -> Mosaic skips the B-tile DMA
-        c2 = sc[i].reshape(t, G)
-        z2 = np.abs(bp[i]).sum(axis=(-1, -2)).reshape(t, G) == 0
-        for step in range(1, t):
-            for buf in range(G):
-                if z2[step, buf]:
-                    assert c2[step, buf] == c2[step - 1, buf]
-
-
-def test_dist_bsr_spmm_pallas_ring(mesh, rng):
-    """Ring strategy with the grouped flat Pallas kernel per chunk:
-    every col-chunk bucket gets its own covered + group-packed layout
-    (pack_buckets_pallas) and the per-step kernel outputs accumulate
-    in the f32 ring carry (interpret mode on the CPU mesh)."""
-    bsr, dense, want = _random_case(rng)
-    run = dist_bsr_spmm_plan(
-        bsr, mesh=mesh, strategy="ring", local_impl="pallas"
-    )
-    assert_allclose(np.asarray(run(dense)), want)
-
-    # forced group > 1 exercises the grouped slot layout + pad fills;
-    # ragged block grid exercises covering of rows past the real height
-    bsr2 = random_bsr(0.08, 13, 11, block_size=8, seed=3)
-    dense2 = rng.standard_normal((bsr2.shape[1], 10)).astype(np.float32)
-    run2 = dist_bsr_spmm_plan(
-        bsr2, mesh=mesh, strategy="ring", local_impl="pallas", group=4
-    )
-    assert_allclose(np.asarray(run2(dense2)), bsr2.to_dense() @ dense2)
-
-
-def test_dist_bsr_spmm_pallas_halo(mesh, rng):
-    """Halo strategy with the flat Pallas kernel per neighbor offset
-    (banded matrix, genuinely halo-eligible — no allgather fallback)."""
-    from spmm_denseblock_tpu.formats.csr import CSR
-    from spmm_denseblock_tpu.convert.csr2bsr import csr_to_bsr
-
-    n = 32 * 8
-    rows = np.repeat(np.arange(n), 5)
-    cols = (rows + np.tile(np.arange(-2 * 8, -2 * 8 + 5), n)) % n
-    banded = CSR.from_coo(rows, cols, None, (n, n))
-    bsr = csr_to_bsr(banded, 8)
-    dense = rng.standard_normal((n, 12)).astype(np.float32)
-    want = spmm_scipy(banded, dense)
-    run = dist_bsr_spmm_plan(
-        bsr, mesh=mesh, strategy="halo", local_impl="pallas"
-    )
-    assert_allclose(np.asarray(run(dense)), want)
-
-
-def test_dist_bsr_spmm_pallas_grouped_allgather(mesh, rng):
-    """Allgather + pallas now runs the GROUPED kernel layout (was
-    hard-coded group=1)."""
-    bsr, dense, want = _random_case(rng)
-    run = dist_bsr_spmm_plan(
-        bsr, mesh=mesh, strategy="allgather", local_impl="pallas", group=4
-    )
-    assert_allclose(np.asarray(run(dense)), want)
-
-
 def test_dist_windowed_spmm_matches_oracle(mesh, rng):
     from spmm_denseblock_tpu.formats.windowed import divide_windowed
     from spmm_denseblock_tpu.parallel import dist_windowed_spmm_plan
@@ -410,52 +297,6 @@ def test_dist_bsr_spmm_bf16(mesh, rng, strategy):
 
 
 @pytest.mark.parametrize("strategy", ["allgather", "ring"])
-def test_dist_bsr_spmm_bf16_pallas_rowgroup(mesh, rng, strategy):
-    """bf16 + local_impl='pallas' dist stripes pack the row-group
-    resident layout (the single-chip best schedule, threaded through
-    pack_buckets_pallas late in round 4) — pin the plan static and the
-    oracle parity. f32 pallas plans must stay on the single-row layout
-    (row-groups are resident-only; f32 residency is a recorded
-    negative)."""
-    import jax.numpy as jnp
-
-    def rg_of(p):
-        # unwrap the LPT-balance _undo_apply wrapper (statics=()) to
-        # reach the strategy plan's (strategy, inner, dtype_key) statics
-        while not p.statics:
-            p = p.arrays[0]
-        return p.statics[1][-1]
-
-    bsr, dense, want = _random_case(rng, b=8, nbr=16, nbc=16, f=16)
-    run = dist_bsr_spmm_plan(
-        bsr, mesh=mesh, strategy=strategy, dtype=jnp.bfloat16,
-        local_impl="pallas",
-    )
-    # rg static: round 5 ships the DEPTH-SORTED row-group layout when
-    # the occupancy gate passes (>= 2 real blocks/row for bf16, >= 8
-    # for int8 — sorted_grid_r5.jsonl), consecutive R below it
-    avg = bsr.nnzb / bsr.n_block_rows
-    assert rg_of(run) == (("sorted", 16, 4, 128) if avg >= 2.0 else 16)
-    got = np.asarray(run(dense))
-    rel = np.abs(got - want).max() / (np.abs(want).max() + 1e-9)
-    assert rel < 3e-2, rel
-
-    run_i8 = dist_bsr_spmm_plan(
-        bsr, mesh=mesh, strategy=strategy, dtype=jnp.int8,
-        local_impl="pallas",
-    )
-    # int8 dist additionally ships group-scale quantization (r5)
-    assert rg_of(run_i8) == (
-        ("sorted_gs", 8, 8, 32) if avg >= 8.0 else 8
-    )
-
-    run_f32 = dist_bsr_spmm_plan(
-        bsr, mesh=mesh, strategy=strategy, local_impl="pallas"
-    )
-    assert rg_of(run_f32) == 0
-
-
-@pytest.mark.parametrize("strategy", ["allgather", "ring"])
 def test_dist_bsr_spmm_lpt_balance(mesh, rng, strategy):
     """LPT balancing auto-applies on a hub-skewed matrix (one stripe owns
     nearly all blocks under contiguous partition) and the output comes
@@ -493,9 +334,9 @@ def test_dist_bsr_spmm_lpt_balance(mesh, rng, strategy):
 
 
 def test_comms_model():
-    """ICI comms-volume model: halo is O(1) in mesh size, allgather/ring
-    are (n-1)/n; efficiency hits 1.0 once per-device compute covers the
-    exchange; min_nnzb inverts the model."""
+    """NVLink comms-volume model: halo is O(1) in mesh size,
+    allgather/ring are (n-1)/n; efficiency hits 1.0 once per-device
+    compute covers the exchange; min_nnzb inverts the model."""
     from spmm_denseblock_tpu.parallel.comms import (
         comms_bytes_per_device,
         efficiency_model,
@@ -512,19 +353,25 @@ def test_comms_model():
     assert comms_bytes_per_device("ring", 8, K, F) == ag8
     assert comms_bytes_per_device("allgather", 1, K, F) == 0.0
 
-    # the BASELINE >=80% math (recorded in BASELINE.md): at the headline
-    # shape (20.6k 128^2 blocks, B = 2^17 x 512) allgather moves more
-    # bytes than the stripes compute — the model says so honestly...
-    m = efficiency_model("allgather", 8, 20668, 128, K, F)
+    # at the headline shape (20.6k 128^2 blocks, B = 2^17 x 512) f32
+    # stripes on CUDA cores compute longer than NVLink takes to move B...
+    m32 = efficiency_model("allgather", 8, 20668, 128, K, F)
+    assert m32["efficiency"] == 1.0 and m32["device"] == "H100 SXM", m32
+    # ...but bf16 on the tensor cores is ~15x faster, so allgather's
+    # exchange dominates while halo's O(1) volume keeps it ahead
+    bf = dict(itemsize=2, dtype_flops="bf16")
+    m = efficiency_model("allgather", 8, 20668, 128, K, F, **bf)
     assert m["efficiency"] < 0.5, m
-    # ...while the banded/halo route keeps the target at the same shape
-    mh = efficiency_model("halo", 8, 20668, 128, K, F)
-    assert mh["efficiency"] >= 0.8, mh
+    mh = efficiency_model("halo", 8, 20668, 128, K, F, **bf)
+    assert mh["efficiency"] > 3 * m["efficiency"], (mh, m)
     # and allgather recovers the target once the graph is dense enough
-    need = min_nnzb_for_efficiency("allgather", 8, 128, K, F)
+    need = min_nnzb_for_efficiency("allgather", 8, 128, K, F, **bf)
     assert 20668 < need < 500_000, need
-    big = efficiency_model("allgather", 8, need, 128, K, F)
+    big = efficiency_model("allgather", 8, need, 128, K, F, **bf)
     assert big["efficiency"] >= 0.8, big
+    # the model is keyed by device_kind: an unknown card is an error
+    with pytest.raises(KeyError, match="device_kind"):
+        efficiency_model("halo", 8, 20668, 128, K, F, device_kind="not a card")
 
 
 def test_dist_csr_ell_matches_segment_and_oracle(mesh, rng):
@@ -587,7 +434,7 @@ def test_dist_csr_ell_compact_matches_oracle(mesh, rng):
 
 
 def test_dist_csr_ell_bf16_gather(mesh, rng):
-    """dtype=bf16 casts B before the all_gather (halves ICI + gather
+    """dtype=bf16 casts B before the all_gather (halves link + gather
     bytes); f32 accumulate keeps rel err ~1e-3 — outside the 1e-4 oracle
     gate, so it is opt-in (mirrors ops/csr_spmm_ell.py)."""
     import jax.numpy as jnp
@@ -604,7 +451,7 @@ def test_dist_csr_ell_bf16_gather(mesh, rng):
 def test_dist_csr_ell_int8_gather(mesh, rng):
     """dtype=int8 quantizes B once globally (per-column symmetric
     scales, calibrated or dynamic) — the all_gather and HBM gathers
-    move int8 (4x less ICI than f32). Quantization-noise tolerance;
+    move int8 (4x fewer link bytes than f32). Quantization-noise tolerance;
     valued + pattern layouts."""
     import jax.numpy as jnp
 
@@ -715,45 +562,6 @@ def test_dist_bsr_spmm_int8_halo(mesh, rng):
     want = spmm_scipy(banded, dense)
     run = dist_bsr_spmm_plan(bsr, mesh=mesh, strategy="halo",
                              dtype=jnp.int8)
-    got = np.asarray(run(dense))
-    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
-    assert 0 < rel < 3e-2, rel
-
-
-@pytest.mark.parametrize("strategy", ["allgather", "ring"])
-def test_dist_bsr_spmm_int8_pallas(mesh, rng, strategy):
-    """int8 + local_impl='pallas': the grouped int8 MXU kernel per
-    stripe/chunk (per-slot scales quantized AFTER packing so pad slots
-    are exact zeros; global per-column operand scale on the epilogue)."""
-    import jax.numpy as jnp
-
-    bsr, dense, want = _random_case(rng, b=8, nbr=16, nbc=16, f=16)
-    cal = rng.standard_normal((400, 16)).astype(np.float32)
-    for calib in (None, cal):
-        run = dist_bsr_spmm_plan(
-            bsr, mesh=mesh, strategy=strategy, dtype=jnp.int8,
-            local_impl="pallas", calibration=calib, group=2,
-        )
-        got = np.asarray(run(dense))
-        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
-        assert 0 < rel < 3e-2, (strategy, calib is None, rel)
-
-
-def test_dist_bsr_spmm_int8_pallas_halo(mesh, rng):
-    import jax.numpy as jnp
-
-    from spmm_denseblock_tpu.formats.csr import CSR
-    from spmm_denseblock_tpu.convert.csr2bsr import csr_to_bsr
-
-    n = 32 * 8
-    rows = np.repeat(np.arange(n), 5)
-    cols = (rows + np.tile(np.arange(-2 * 8, -2 * 8 + 5), n)) % n
-    banded = CSR.from_coo(rows, cols, None, (n, n))
-    bsr = csr_to_bsr(banded, 8)
-    dense = rng.standard_normal((n, 12)).astype(np.float32)
-    want = spmm_scipy(banded, dense)
-    run = dist_bsr_spmm_plan(bsr, mesh=mesh, strategy="halo",
-                             dtype=jnp.int8, local_impl="pallas")
     got = np.asarray(run(dense))
     rel = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert 0 < rel < 3e-2, rel
@@ -881,17 +689,15 @@ def test_balanced_contiguous_halo_int8(mesh, rng):
 
 
 def test_index_payload_pipeline_bitwise(rng):
-    """The metadata-only plan path (shard/bucket/pack on an index
-    payload, values gathered once at the end — round-4 verdict #4's
-    plan-time fix) produces BITWISE the layout and values of the
-    value-mode pipeline at every stage."""
+    """The metadata-only plan path (shard/bucket on an index payload,
+    values gathered once at the end) produces BITWISE the layout and
+    values of the value-mode pipeline at every stage."""
     from spmm_denseblock_tpu.formats.bsr import BSR
     from spmm_denseblock_tpu.parallel.shard import (
         block_index_payload,
         bucket_by_col_chunk,
         bucket_halo,
         materialize_packed,
-        pack_buckets_pallas,
         shard_bsr,
     )
 
@@ -905,19 +711,6 @@ def test_index_payload_pipeline_bitwise(rng):
     assert np.array_equal(
         shv.blocks, materialize_packed(shp.blocks, blocks)
     )
-    for rg in (0, 4):
-        a = pack_buckets_pallas(
-            shv.local_rows, shv.block_cols, shv.blocks,
-            shv.rows_per_shard, group=4, rowgroup=rg,
-        )
-        c = pack_buckets_pallas(
-            shp.local_rows, shp.block_cols, shp.blocks,
-            shp.rows_per_shard, group=4, rowgroup=rg,
-        )
-        assert np.array_equal(a[0], c[0])
-        assert np.array_equal(a[1], c[1])
-        assert np.array_equal(a[2], materialize_packed(c[2], blocks))
-        assert a[3] == c[3]
     lv = bucket_by_col_chunk(shv)
     lp = bucket_by_col_chunk(shp)
     assert np.array_equal(lv[0], lp[0])

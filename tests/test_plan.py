@@ -1,5 +1,5 @@
 """Plan pytree API: composition, grads, and the GB-scale no-constants
-property (ROUND1_NOTES §0 / ops/plan.py)."""
+property (ops/plan.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -71,7 +71,7 @@ def test_sum_plan_and_grad_through_composition(rng):
 
 def test_spmm_plan_returns_plans_for_main_tiers(rng):
     csr = random_csr(0.05, 96, 96, seed=4, values="ones")
-    for impl in ("csr_xla", "csr_ell", "csr_pallas", "windowed", "tiered"):
+    for impl in ("csr_xla", "csr_ell", "bsr_pallas", "windowed", "tiered"):
         p = spmm_plan(csr, impl=impl, block_size=16)
         assert isinstance(p, Plan), impl
         got = np.asarray(p(rng.standard_normal((96, 5)).astype(np.float32)))
@@ -215,7 +215,7 @@ def test_ell_chunks_store_larger_dim_minor(rng):
     """Compile-safety invariant (ogbl-citation RESOURCE_EXHAUSTED,
     csr_spmm_ell._ell_spmm_device docstring): every ELL chunk is a 2D
     array whose minor dim is the larger of (m, K), so no parameter
-    carries a narrow minor dim that TPU tile-padding would blow up
+    carries a narrow minor dim that a tiled device layout would pad
     64-128x. Checked for both plain and banded layouts on a skewed-
     degree matrix that produces K=1/2 classes with many rows."""
     import importlib

@@ -1,16 +1,13 @@
-"""Round-4 regression pins: the fuse pass, the ADVICE r3 fixes, and the
-new harness fields.
+"""Regression pins: dtype casts before collectives, jitted applies, and
+the harness fields.
 
-- ring/halo dist plans must move the CASTED operand over ICI (ADVICE r3
-  medium: bf16 ring ppermuted f32, 2x the documented bytes — silent
-  because results only got more precise). Pinned via jaxpr inspection.
-- _pallas_f_geometry must tile from the per-device F slice (ADVICE r3
-  low: F=512/tp=4 over-padded to 2048).
-- per_buffer_col_fill is the single shared pad-DMA-skip fill
-  (ADVICE r3 low: two drifting copies).
-- every plan family's apply is jitted (the fuse pass): pytree plans
-  whose apply_fn lacks __wrapped__ would mean an eager (unfused) apply.
-- time_repeats / conformance_fields harness contracts.
+- ring/halo dist plans must move the CASTED operand over the links
+  (a bf16 ring that ppermuted f32 would move 2x the documented bytes —
+  silent because results only got more precise). Pinned via jaxpr
+  inspection.
+- every plan family's apply is jitted: pytree plans whose apply_fn
+  lacks __wrapped__ would mean an eager (unfused) apply.
+- conformance_fields harness contract.
 """
 
 import jax
@@ -62,46 +59,14 @@ def test_dist_bf16_collective_moves_bf16(strategy):
             ):
                 raise AssertionError(
                     f"{strategy}: {e.primitive.name} moves f32 "
-                    f"(2x the documented ICI bytes) — the dtype cast "
+                    f"(2x the documented link bytes) — the dtype cast "
                     f"is missing before the collective"
                 )
 
 
-def test_pallas_f_geometry_per_device_tile():
-    from spmm_denseblock_tpu.parallel.spmm import _pallas_f_geometry
-
-    # F=512 over tp=4: per-device slice is 128 -> one 128 tile, padded
-    # total 512 (the old full-F tile gave ft=512 / padded 2048)
-    ft, fp = _pallas_f_geometry(512, 4)
-    assert ft == 128 and fp == 512
-    # tp=1 unchanged from the original rule
-    ft, fp = _pallas_f_geometry(512, 1)
-    assert ft == 512 and fp == 512
-    ft, fp = _pallas_f_geometry(100, 1)
-    assert ft == 128 and fp == 128
-    # uneven: F=300, tp=2 -> per-dev 150 -> ft 256, padded 512
-    ft, fp = _pallas_f_geometry(300, 2)
-    assert ft == 256 and fp == 512
-
-
-def test_per_buffer_col_fill_shared_semantics():
-    from spmm_denseblock_tpu.ops.bsr_spmm_pallas import per_buffer_col_fill
-
-    cols = np.array([[5, -1], [-1, 7], [-1, -1]])
-    real = cols >= 0
-    fb = np.full_like(cols, 9)
-    out = per_buffer_col_fill(cols, real, fb)
-    # buffer 0: real 5 at step 0, pads repeat 5; buffer 1: leading pad
-    # takes fallback 9, real 7 at step 1, pad repeats 7
-    assert out.tolist() == [[5, 9], [5, 7], [5, 7]]
-    # no fallback: leading pads keep their col
-    out2 = per_buffer_col_fill(cols, real)
-    assert out2.tolist() == [[5, -1], [5, 7], [5, 7]]
-
-
 def test_every_plan_family_apply_is_jitted():
     """A Plan whose apply_fn lacks __wrapped__ dispatches its pre-ops
-    eagerly — the round-3 ~1.3 ms/dispatch regression class."""
+    eagerly, one launch each."""
     from spmm_denseblock_tpu.ops import spmm_plan
     from spmm_denseblock_tpu.ops.plan import Plan
 
@@ -119,11 +84,11 @@ def test_every_plan_family_apply_is_jitted():
                 if isinstance(child, Plan):
                     check(child, label + ">child")
 
-    for impl in ("csr_ell", "csr_xla", "csr_pallas", "csr_ell_int8",
+    for impl in ("csr_ell", "csr_xla", "csr_ell_int8",
                  "hybrid", "windowed", "windowed_int8", "csr_ell_banded"):
         check(spmm_plan(csr, impl=impl, grad=False, block_size=64),
               impl)
-    for impl in ("bsr_pallas", "bsr_xla", "bsr_int8", "bsr_int8_pallas"):
+    for impl in ("bsr_pallas", "bsr_xla", "bsr_int8"):
         check(spmm_plan(bsr, impl=impl, grad=False), impl)
     # grad combinator
     check(spmm_plan(csr, impl="csr_ell", grad=True), "csr_ell+grad")
@@ -131,24 +96,6 @@ def test_every_plan_family_apply_is_jitted():
 
     check(transb_plan(spmm_plan(csr, impl="csr_ell", grad=False)),
           "transb")
-
-
-def test_time_repeats_fields():
-    from spmm_denseblock_tpu.bench.timing import time_repeats
-
-    f = jax.jit(lambda x: x * 2.0)
-    x = jnp.ones((8, 8))
-    t = time_repeats(f, x, repeats=3, iters=2, k=2, square=True)
-    # spread_frac always present; spread_warn only when the record's
-    # own spread exceeds the documented ~10% relay variance band
-    # (round-4 verdict #8: records must self-flag)
-    base = {"secs", "secs_min", "secs_max", "repeats", "spread_frac"}
-    assert base <= set(t) <= base | {"spread_warn"}
-    assert t["secs_min"] <= t["secs"] <= t["secs_max"]
-    assert t["repeats"] == 3
-    spread = (t["secs_max"] - t["secs_min"]) / t["secs"]
-    if abs(spread - 0.10) > 1e-3:  # away from the boundary
-        assert ("spread_warn" in t) == (spread > 0.10)
 
 
 def test_conformance_fields_per_dtype():
@@ -166,7 +113,7 @@ def test_conformance_fields_per_dtype():
 
 def test_auto_small_b_repack_routing():
     """auto must repack small-b BSR to 128-supertiles exactly when the
-    measured two-rate score says so (smallb_grid_r4.jsonl, 24/24)."""
+    two-rate score says so."""
     from spmm_denseblock_tpu.ops import spmm_plan
     from spmm_denseblock_tpu.ops.dispatch import _prefer_repack128
     from spmm_denseblock_tpu.ops.reference import spmm_scipy
